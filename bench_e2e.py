@@ -1,6 +1,7 @@
 """End-to-end wall-clock benchmarks (BASELINE.md configs 1/3/4).
 
-Runs on the real TPU chip:
+Runs on one GPU (refuses any other backend; every JSON line names the
+device kind and count and the card's nvidia-smi name and power limit):
   A. 2 x 4.6 Mbp synthetic pair -> align() (LCBs + gapped intervals) ->
      XMFA (config 1+3)
   B. 9 x ~1 Mbp synthetic enterobacteria-like set -> progressive_align
@@ -11,20 +12,20 @@ Prints one JSON line per phase to stdout.  Every number the README
 publishes comes from these JSON lines (`--render-readme` rewrites the
 README table from the recorded results — one source of truth).
 
-Timing labels (PERF.md rule 12 — compile cost is paid once per kernel
-shape EVER via the persistent cache, so these differ a lot):
+Timing labels (compile cost is paid once per kernel shape via the
+persistent cache, so these differ a lot):
 
   value / *_s          first run in THIS process: includes jit tracing
                        + cached-executable loads (warm cache) or full
-                       remote compiles (cold cache).  The JSON records
-                       which via "cache": "warm"|"cold".
+                       compiles (cold cache).  The JSON records which
+                       via "cache": "warm"|"cold".
   marginal_s           a SECOND, different input in the same process —
                        the per-alignment cost a long-running service
                        sees.
-  --cold               point the persistent cache at a fresh temp dir
-                       first: the true first-ever-run number.
+  --cold               run with the persistent cache switched off, so
+                       every kernel compiles: the first-ever-run number.
 
-Quality stats ride along (VERDICT r3 item 6): sum-of-pairs score and
+Quality stats ride along: sum-of-pairs score and
 column/coverage stats of the final XMFA, so content regressions are
 visible independently of byte-golden stability.
 """
@@ -34,15 +35,19 @@ import os
 import sys
 import time
 
-RESULTS_PATH = os.path.join(os.path.dirname(os.path.abspath(__file__)),
-                            "bench_results.json")
+REPO = os.path.dirname(os.path.abspath(__file__))
+RESULTS_PATH = os.path.join(REPO, "bench_results.json")
+
+_COLD = False      # set by --cold
+_DEVICE: dict = {}
 
 
 def _emit(obj):
-    if os.environ.get("LIBMEMS_TPU_BENCH_COLD") == "1":
+    obj = {**obj, **_DEVICE}
+    if _COLD:
         # --cold results are their own metric: they must not overwrite
         # the steady-state entry in the accumulator
-        obj = {**obj, "metric": obj["metric"] + "_cold"}
+        obj["metric"] += "_cold"
     print(json.dumps(obj), flush=True)
     # keep the latest result per metric for --render-readme
     try:
@@ -105,9 +110,9 @@ def _mutant_family(n_genomes, length, rng_seed=0, mutate=0.01,
 
 def _repeat_rich_ancestor(length, rng_seed=1234):
     """Ancestor with PLANTED repeat families — the structure real
-    bacterial genomes carry and uniform-random synthetics lack
-    (VERDICT r4 missing 4): a 30-copy 1.5 kb IS-element-like family, a
-    7-copy 5 kb rRNA-operon-like family, and a 12-copy 300 bp
+    bacterial genomes carry and uniform-random synthetics lack: a
+    30-copy 1.5 kb IS-element-like family, a 7-copy 5 kb
+    rRNA-operon-like family, and a 12-copy 300 bp
     REP-element-like family, copies diverged 1-3% from their consensus.
     These stress the 1000-occurrence mer cutoff (MatchFinder.cpp:166
     semantics), overlap clustering (Aligner.cpp:62-178) and the
@@ -226,9 +231,11 @@ def phase_trio_to_xmfa(tmpdir, length=1_500_000):
 
 
 def _cache_state() -> str:
-    """'warm' when the persistent compile cache already has entries."""
-    from libmems_tpu import _jaxconfig
-    d = _jaxconfig._cache_dir
+    """'warm' when the persistent compile cache in force has entries."""
+    import jax
+    if not jax.config.jax_enable_compilation_cache:
+        return "cold"
+    d = jax.config.jax_compilation_cache_dir
     try:
         return "warm" if d and os.listdir(d) else "cold"
     except OSError:
@@ -268,10 +275,8 @@ def phase_pair_to_xmfa(tmpdir):
     # marginal: DIFFERENT genome pairs in the same process — the
     # per-alignment cost a long-running service sees.  Two different
     # second inputs are run and the LAST is reported: the first
-    # marginal run can still pay one-time executable loads for padded
-    # shapes the warmup input didn't produce (measured: a fresh bucket
-    # shape costs ~1-3 s of load; warm align_profile_batch on the same
-    # window set is ~0.14 s)
+    # marginal run can still pay one-time compiles or executable loads
+    # for padded shapes the warmup input didn't produce
     trace.reset()
     dt2a, _, _ = run(1, f"{tmpdir}/pair2.xmfa")
     trace.reset()
@@ -329,7 +334,6 @@ def phase_progressive_9(tmpdir, n=9, length=1_000_000):
     _prof.BAND_STATS.update(dict.fromkeys(_prof.BAND_STATS, 0))
     # marginal: a SECOND, different 9-genome family in the same
     # process — the per-alignment cost once executables are resident
-    # (VERDICT r4 item 4: config 4 gets a steady-state number too)
     trace.reset()
     m0, m1, m2, m_total, m_ivs, _, _ = run(1, "nine2")
     m_stages = trace.stage_seconds()
@@ -360,11 +364,18 @@ README_END = "<!-- BENCH_E2E_TABLE_END -->"
 def render_block(acc: dict) -> str:
     """Render the README table block from a bench_results accumulator
     (pure; tests assert README.md contains exactly this rendering of
-    the committed bench_results.json — drift is impossible)."""
+    the committed bench_results.json — drift is impossible).  The line
+    above the table names the card(s) the rows were measured on."""
+    cards = sorted({f"{r['card']} ({r['device_kind']} x"
+                    f"{r['device_count']})"
+                    for r in acc.values() if isinstance(r, dict)
+                    and "card" in r})
     lines = [
         README_BEGIN,
         "<!-- generated by `python bench_e2e.py --render-readme`;"
         " do not edit by hand -->",
+        "Measured on: " + ("; ".join(cards) or "not measured") + "  ",
+        "",
         "| benchmark | first-in-process | marginal | quality |",
         "|---|---|---|---|",
     ]
@@ -409,7 +420,7 @@ def render_block(acc: dict) -> str:
     c = acc.get("pair_align_to_xmfa_s_cold")
     if c:
         lines.append(
-            f"| (same, fresh compile cache — true first-ever run) | "
+            f"| 2 x 4.6 Mbp pair, no compile cache (first-ever run) | "
             f"{c['value']} s | {c['marginal_s']} s | — |")
     m = acc.get("mum_find_bases_per_s")
     if m:
@@ -423,8 +434,8 @@ def render_block(acc: dict) -> str:
 
 def render_readme():
     """Rewrite README.md's e2e performance table from bench_results.json
-    (one source of truth; VERDICT r3 weak 2).  Called automatically at
-    the end of every bench_e2e run (VERDICT r4 weak 1: the discipline
+    (one source of truth).  Called automatically at
+    the end of every bench_e2e run (the discipline
     must not depend on remembering to re-run it)."""
     with open(RESULTS_PATH) as fh:
         acc = json.load(fh)
@@ -446,16 +457,21 @@ def render_readme():
 
 
 def main():
+    global _COLD, _DEVICE
     import tempfile
     if "--render-readme" in sys.argv:
         render_readme()
         return
+    from bench import gpu_device_record, pin_cards
+    pin_cards(1)
+    _DEVICE = gpu_device_record()
     if "--cold" in sys.argv:
-        # fresh persistent cache BEFORE any libmems_tpu/jax import:
-        # measures the true first-ever-run cost (full remote compiles)
-        cold_dir = tempfile.mkdtemp(prefix="libmems_cold_cache_")
-        os.environ["LIBMEMS_TPU_COMPILE_CACHE"] = cold_dir
-        os.environ["LIBMEMS_TPU_BENCH_COLD"] = "1"
+        # no persistent cache in this process: every kernel compiles,
+        # the first-ever-run cost; the cache directory is left alone
+        import jax
+        import libmems_tpu  # noqa: F401  (its cache settings first)
+        jax.config.update("jax_enable_compilation_cache", False)
+        _COLD = True
     only = {a for a in sys.argv[1:] if a.endswith("-only")}
     with tempfile.TemporaryDirectory() as td:
         if not only or "--pair-only" in only:

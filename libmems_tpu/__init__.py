@@ -1,7 +1,7 @@
-"""libmems_tpu — a TPU-native multiple whole-genome alignment engine.
+"""libmems_tpu — a JAX multiple whole-genome alignment engine.
 
 A from-scratch rebuild of the capabilities of libMems 1.6 (the C++ engine
-behind Mauve / progressiveMauve) designed for TPU hardware:
+behind Mauve / progressiveMauve) built from batched array programs:
 
 * Sorted Mer List (SML) construction is a batched canonical-mer extraction +
   multi-key sort (`libmems_tpu.sml`), replacing libMems' SortedMerList /

@@ -247,16 +247,6 @@ def align(genomes: list[Genome], config: AlignerConfig | None = None
     if seq_count < 2:
         raise ValueError("need at least two genomes")
 
-    if seq_count == 2 and cfg.mesh is None and cfg.repeat_tolerance == 0:
-        # overlap the pair MUM pipeline's executable load with the SML
-        # build (loads parallelize across threads; PERF.md rule 22)
-        from libmems_tpu.matchfind import MER_REPEAT_LIMIT
-        from libmems_tpu.prewarm import prewarm_pair_align
-        from libmems_tpu.sml import default_seed
-        pre_seed = cfg.seed if cfg.seed is not None else \
-            default_seed(genomes, cfg.seed_rank)
-        prewarm_pair_align(genomes, pre_seed, MER_REPEAT_LIMIT)
-
     with trace.stage("sml_build"):
         smls, seed = _build_index_maybe_multihost(genomes, cfg)
     with trace.stage("mum_find"):

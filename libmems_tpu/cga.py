@@ -9,8 +9,8 @@ never stored — it is materialized on demand from the source genomes.
 The coordinate machinery the progressive aligner lives on —
 ``translate`` (h:94), ``copyRange`` (h:96), ``CondenseGapColumns``
 (h:103), SeqPosToColumn/ColumnToSeqPos — is all cumulative-sum algebra
-over the bit matrix here, which is exactly the layout a TPU wants
-(vector scans instead of per-column loops).
+over the bit matrix here (vector scans instead of per-column
+loops).
 """
 
 from __future__ import annotations

@@ -1,6 +1,6 @@
 """External gapped-aligner adapters (subprocess MUSCLE / ClustalW).
 
-TPU-native alignment lives in libmems_tpu.msa (the in-process engine,
+Batched device alignment lives in libmems_tpu.msa (the in-process engine,
 the analog of MuscleInterface::CallMuscleFast).  This module is the
 analog of the reference's *subprocess* adapters:
 
@@ -140,7 +140,7 @@ def align_codes_external_or_native(seqs: list[np.ndarray],
                                    adapter: ExternalGappedAligner | None
                                    ) -> np.ndarray:
     """Use the external adapter when available, else the in-process
-    TPU engine (the reference's CallMuscleFast-vs-pipe split)."""
+    device engine (the reference's CallMuscleFast-vs-pipe split)."""
     if adapter is not None and adapter.available():
         try:
             return adapter.align_codes(seqs)

@@ -1,6 +1,6 @@
 """Array-native match data model (struct-of-arrays).
 
-TPU-first equivalent of the reference's Match / MatchList object graph
+Array-native equivalent of the reference's Match / MatchList object graph
 (libMems/Match.h, UngappedLocalAlignment.h, HybridAbstractMatch.h,
 MatchList.h).  Instead of millions of heap-allocated Match objects chained
 through a SlotAllocator, a MatchArray stores all matches of one search as

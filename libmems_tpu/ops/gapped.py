@@ -1,6 +1,6 @@
 """Batched pairwise global alignment with affine gaps (Gotoh DP).
 
-TPU-native replacement for the reference's in-process MUSCLE calls on
+Batched device replacement for the reference's in-process MUSCLE calls on
 inter-anchor gap regions (MuscleInterface::Align / CallMuscleFast,
 libMems/MuscleInterface.cpp:428-521,:727-769).  Scoring follows the
 reference's defaults: HOXD70 substitution matrix, gap open -400, gap
@@ -204,7 +204,8 @@ def unpack_ptrs(packed: np.ndarray, width: int) -> np.ndarray:
 
 # device-side traceback engages when the full pointer tensor fits this
 # many bytes on device (B * M * (N+1)); above it, the host blockwise
-# walk with per-block pointer fetches takes over
+# walk with per-block pointer fetches takes over.  Route-only (both
+# walks give the same path); set on earlier hardware, re-tune on the GPU
 DEVICE_TB_BUDGET = int(os.environ.get("LIBMEMS_TPU_DEVICE_TB_BUDGET",
                                       1 << 30))
 

@@ -1,6 +1,6 @@
 """Canonical spaced-seed mer extraction.
 
-TPU-native equivalent of the reference's rolling-window mer fill +
+Vectorized equivalent of the reference's rolling-window mer fill +
 reverse-complement canonicalization (SortedMerList::FillDnaSeedSML /
 GetSeedMer / GetDnaSeedMer / RevCompMer, libMems/SortedMerList.cpp:597-783).
 

@@ -1,6 +1,6 @@
 """Batched profile-profile global alignment with affine gaps.
 
-The compute core of the TPU-native MSA engine (libmems_tpu.msa) that
+The compute core of the batched MSA engine (libmems_tpu.msa) that
 replaces the reference's in-process libMUSCLE profile alignment
 (MuscleInterface::ProfileAlignFast, libMems/MuscleInterface.cpp:1053;
 CallMuscleFast :727-769).  A profile is a column distribution over the
@@ -9,7 +9,7 @@ columns is the expected HOXD70 pair score
 
     S(i, j) = p_i^T · W · q_j
 
-computed as one matmul per DP row (MXU work), with gap-open/extend costs
+computed as one small matmul per DP row, with gap-open/extend costs
 scaled by the partner column's non-gap occupancy (a standard profile-SP
 approximation of MUSCLE's scoring; alignment *content* parity with
 MUSCLE is not a goal — anchor-framework parity is, SURVEY.md M4).
@@ -60,7 +60,10 @@ def _profile_row_fn(qw, ext_q, ext_cum, q_len, gap_open, emit_ptr: bool):
         f_ext = f_prev + ext_pi[:, None]
         f_row = jnp.maximum(f_open, f_ext)
 
-        s = jnp.einsum("bx,bnx->bn", p_i, qw)        # [B, N]
+        # HIGHEST: a float32 product must not drop to TF32 on the GPU,
+        # or scores and traceback tie-breaks change
+        s = jnp.einsum("bx,bnx->bn", p_i, qw,
+                       precision=jax.lax.Precision.HIGHEST)   # [B, N]
         diag = h_prev[:, :-1] + s
 
         g = jnp.maximum(diag, f_row[:, 1:])
@@ -100,7 +103,8 @@ def _profile_q_setup(q, gap_open, gap_extend):
     w = jnp.asarray(W5)
     q_occ = 1.0 - q[:, :, GAP_CODE]                 # [B, N]
     ext_q = gap_extend * q_occ                      # gap in p consumes q col
-    qw = jnp.einsum("bnx,yx->bny", q, w)            # [B, N, 5]
+    qw = jnp.einsum("bnx,yx->bny", q, w,
+                    precision=jax.lax.Precision.HIGHEST)   # [B, N, 5]
     j_idx = jnp.arange(q.shape[1] + 1, dtype=jnp.int32)
     ext_cum = jnp.concatenate(
         [jnp.zeros((B, 1), jnp.float32), jnp.cumsum(ext_q, axis=1)], axis=1)
@@ -166,7 +170,7 @@ _dp_mesh_cache: list = [None]
 
 def dp_mesh():
     """1-D mesh over this process's LOCAL devices for batch-sharding the
-    window DP (VERDICT r2 item 3d: the gapped-DP batch is embarrassingly
+    window DP (the gapped-DP batch is embarrassingly
     parallel — on a multi-chip mesh every device aligns its slice of the
     window batch; one chip behaves exactly as before).  None on
     single-device backends.
@@ -244,7 +248,7 @@ def _shard_full_tb(mesh, gap_open, gap_extend, T):
 
 
 # --------------------------------------------------------------------------
-# banded DP (VERDICT r5 item 1: the inter-anchor windows sit between
+# banded DP (the inter-anchor windows sit between
 # chained anchors, so their optimal paths hug the corner-to-corner
 # diagonal; a block-banded scan cuts DP cells ~4-7x at the big column
 # buckets).  EXACTNESS IS PRESERVED by a per-window certificate:
@@ -513,12 +517,11 @@ def _band_eligible(p_len: np.ndarray, q_len: np.ndarray,
 
 
 def _bucket_cols(n, minimum=16):
-    """Padded column bucket: 4x-spaced below 1024 (round-trips dominate
-    padding waste for small windows), 1.5x-spaced above.  The forward
-    scan is row-LATENCY-bound at refine-window scale (measured ~1.4 us
-    per row step regardless of width), so padded ROWS are wall-clock:
-    the finer spacing above 1024 cuts scan steps up to ~40% for
-    1-2.5k-row windows; extra buckets only cost one-time compiles."""
+    """Padded column bucket: 4x-spaced below 1024 (per-call overhead
+    dominates padding waste for small windows), 1.5x-spaced above.  The
+    forward scan is one sequential step per row, so padded ROWS cost
+    wall-clock: the finer spacing above 1024 cuts scan steps up to ~40%
+    for 1-2.5k-row windows; extra buckets only cost one-time compiles."""
     b = minimum
     while b < n and b < 1024:
         b *= 4
@@ -536,8 +539,8 @@ def profile_scores_batch(p_rows: list[np.ndarray],
     only a float32[B] fetch.
 
     The gate for score-gated refinement (msa.refine_windows): tracebacks
-    transfer packed pointers at DP-cells/2 bytes, which at refine-window
-    scale is GBs over the device link, so the expensive traceback runs
+    hold and transfer packed pointers at DP-cells/2 bytes, which at
+    refine-window scale is GBs, so the expensive traceback runs
     ONLY for pairs whose optimal score beats their current alignment's
     path score (PERF.md rule 20)."""
     B = len(p_rows)
@@ -600,10 +603,9 @@ def profile_scores_batch(p_rows: list[np.ndarray],
 
 
 def _map_buckets(fn, buckets: dict):
-    """Run per-bucket work concurrently: each bucket's first call pays
-    an executable load on the remote backend, and loads parallelize
-    across threads (PERF.md rule 22).  Buckets write disjoint result
-    indices, so threading is safe.
+    """Run per-bucket work concurrently, so one bucket's host work and
+    first-call compile overlap another's device work.  Buckets write
+    disjoint result indices, so threading is safe.
 
     Under multi-host (jax.distributed) execution the buckets run
     SERIALLY: the bucket kernels are shard_map programs over a mesh

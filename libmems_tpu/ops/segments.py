@@ -52,7 +52,7 @@ def seg_cummax(values: jax.Array, seg_starts: jax.Array) -> jax.Array:
     segment ids are monotone non-decreasing along the table, so the high
     bits reset the running max at every segment start.  A flag-reset
     `associative_scan` computes the same thing but lowers to a log-depth
-    slice/concat network whose TPU compile time is minutes at
+    slice/concat network whose compile time was minutes at
     genome-scale N; the packed form compiles like any other cumulative
     op."""
     seg_id = jnp.cumsum(seg_starts.astype(jnp.int64)) - 1

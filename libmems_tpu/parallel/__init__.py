@@ -3,7 +3,7 @@
 The reference's only parallelism is OpenMP chunking over one host's SML
 (ParallelMemHash.cpp:42-121) plus out-of-core key-range partitioning
 (dmSML/dmsort.c bins the mer stream by key prefix across scratch disks).
-The TPU-native design promotes that same key-range idea to the device
+This design promotes that same key-range idea to the device
 mesh: the canonical seed-key space is partitioned by content prefix, every
 device extracts keys for its tile of the input genomes, and an all-to-all
 routes each window to the device that owns its key range.  Equal-content

@@ -135,7 +135,7 @@ def _host_eligible(frags, members) -> bool:
     """Small fragment pairs run the single-core numpy twin of the fused
     pair pipeline — device dispatch latency dwarfs the compute at
     gap-search scale (a G==2 full mask equals the pair path's exact-pair
-    semantics); these jobs are also safe for a fork-pool worker (no JAX
+    semantics); these jobs are also safe for a host pool worker (no JAX
     calls)."""
     from libmems_tpu.matchfind import HOST_PAIR_CUTOFF
     return (len(members) == 2
@@ -145,8 +145,8 @@ def _host_eligible(frags, members) -> bool:
 def _search_frags(frags, frag_ambig, members, G, gap_starts, gap_lens,
                   seed, seed_families, nway, use_host) -> MatchArray:
     """Family-union MUM search over prepared fragments + translation to
-    global coordinates.  With use_host=True this is numpy-only (fork-
-    pool safe); otherwise it builds device SMLs."""
+    global coordinates.  With use_host=True this is numpy-only (safe in
+    a host pool worker); otherwise it builds device SMLs."""
     seq_mask = (1 << len(members)) - 1 if nway else 0
     weight = seedlib.seed_weight(seed)
     from libmems_tpu.matchfind import find_pair_mums_np
@@ -201,11 +201,25 @@ def _search_gap(genomes, gap_starts, gap_lens, seed,
                          _host_eligible(frags, members))
 
 
-# how many host-eligible jobs justify spinning up the fork pool, and
-# its size; LIBMEMS_TPU_POOL=0 disables pooling entirely
+# how many host-eligible jobs justify starting the worker pool, and its
+# size; LIBMEMS_TPU_POOL=0 disables pooling entirely
 _POOL_MIN_JOBS = int(os.environ.get("LIBMEMS_TPU_POOL_MIN_JOBS", 8))
 _POOL_SIZE = int(os.environ.get("LIBMEMS_TPU_POOL",
                                 min(os.cpu_count() or 1, 16)))
+
+
+def host_pool_map(fn, payloads: list) -> list:
+    """map(fn, payloads) over a pool of host threads, order-preserving.
+
+    Threads, not processes: by the time a pool is needed the parent
+    holds the device client and its threads, and a forked copy of those
+    can deadlock, while a spawned or forkserver worker re-imports the
+    caller's main module.  The pooled work is numpy (sorts, compares,
+    reductions over arrays), which runs with the GIL released."""
+    from concurrent.futures import ThreadPoolExecutor
+    workers = max(1, min(_POOL_SIZE, len(payloads)))
+    with ThreadPoolExecutor(max_workers=workers) as ex:
+        return list(ex.map(fn, payloads))
 
 
 def _pool_worker(payload):
@@ -222,8 +236,8 @@ def search_gaps_batch(genomes: list[Genome], jobs: list,
     of a recursion round instead of one `search_gap` at a time (the
     reference ran these under `#pragma omp parallel for`,
     ProgressiveAligner.cpp:695; here the sub-cutoff host-twin searches
-    fan out over a fork pool and the rare device-scale jobs run in the
-    parent, which owns the TPU client).
+    fan out over a host worker pool and the rare device-scale jobs run
+    in the parent, which owns the device client).
 
     `jobs` is a list of (gap_starts[G], gap_lens[G], seed); returns one
     MatchArray per job, order-preserving.
@@ -248,14 +262,9 @@ def search_gaps_batch(genomes: list[Genome], jobs: list,
                 results[i] = _search_frags(
                     frags, frag_ambig, members, G, gs, gl, seed,
                     seed_families, nway, False)
-        if (_POOL_SIZE > 1 and len(pool_payloads) >= _POOL_MIN_JOBS
-                and hasattr(os, "fork")):
-            import multiprocessing as mp
-            ctx = mp.get_context("fork")
-            with ctx.Pool(processes=min(_POOL_SIZE,
-                                        len(pool_payloads))) as pool:
-                outs = pool.map(_pool_worker,
-                                [p for _, p in pool_payloads])
+        if _POOL_SIZE > 1 and len(pool_payloads) >= _POOL_MIN_JOBS:
+            outs = host_pool_map(_pool_worker,
+                                 [p for _, p in pool_payloads])
             for (i, _), out in zip(pool_payloads, outs):
                 results[i] = out
         else:

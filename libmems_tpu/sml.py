@@ -1,6 +1,6 @@
 """Sorted Mer List (SML): canonical spaced-seed mer index of one genome.
 
-TPU-native equivalent of the reference's SortedMerList / DNAMemorySML /
+Device equivalent of the reference's SortedMerList / DNAMemorySML /
 DNAFileSML (libMems/SortedMerList.{h,cpp}, MemorySML.cpp, FileSML.cpp).
 Where the reference fills a bmer array with a sequential rolling 2-bit
 window and std::sorts 16-byte records, here the whole index is three
@@ -11,11 +11,11 @@ device arrays produced by vector ops + one `jax.lax.sort`:
 * ``sorted_keys`` / ``sorted_positions``: the SML proper — (key, position)
   pairs ordered by key then position.
 
-The out-of-core dmSML path (dmSML/dmsort.c) has no TPU counterpart here:
-genomes that exceed single-chip HBM are handled by the seed-prefix-range
-sharding in libmems_tpu.parallel instead (each shard sorts its key range
-independently — the same key-range partitioning idea dmSML used across
-scratch disks, now across devices).
+The out-of-core dmSML path (dmSML/dmsort.c) has no device counterpart
+here: genomes that exceed one device's memory are handled by the
+seed-prefix-range sharding in libmems_tpu.parallel instead (each shard
+sorts its key range independently — the same key-range partitioning
+idea dmSML used across scratch disks, now across devices).
 
 Persistence mirrors FileSML's header+data layout in spirit (load if the
 file exists and the seed matches, else recreate — MatchList::LoadSMLs,
@@ -26,6 +26,7 @@ rather than the reference's compiler-dependent C struct bytes.
 from __future__ import annotations
 
 import os
+import warnings
 from dataclasses import dataclass, field
 
 import jax
@@ -34,6 +35,7 @@ import numpy as np
 
 from libmems_tpu import _jaxconfig  # noqa: F401
 from libmems_tpu import seeds as seedlib
+from libmems_tpu import trace
 from libmems_tpu.ops.mers import canonical_seed_keys, canonical_seed_keys_np, key_dtype
 from libmems_tpu.sequence import Genome
 
@@ -382,6 +384,10 @@ class SortedMerList:
                 or "out of memory" in msg
             if not oom:
                 raise
+        trace.count("host_fallback/sml_out_of_core")
+        warnings.warn("SortedMerList: device allocator exhausted, building "
+                      "the index with the out-of-core host sorter",
+                      RuntimeWarning, stacklevel=2)
         if sml_path is None:
             tmp = tempfile.NamedTemporaryFile(suffix=".sml", delete=False,
                                               dir=scratch_dir)
@@ -426,10 +432,8 @@ def create_smls(genomes: list[Genome], seed: int | None = None,
     """Create in-memory SMLs for all genomes
     (MatchList::CreateMemorySMLs, libMems/MatchList.h:407-435).
 
-    Creates run concurrently on a small thread pool: on the remote
-    backend the per-genome cost is dominated by dispatch/executable-load
-    round trips, which overlap almost perfectly across threads
-    (PERF.md rule 22)."""
+    Creates run concurrently on a small thread pool, so one genome's
+    host-side key preparation overlaps another's device sort."""
     if seed is None:
         seed = default_seed(genomes, seed_rank)
     if len(genomes) <= 1:

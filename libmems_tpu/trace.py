@@ -11,11 +11,13 @@ This module is the structured equivalent:
   ``report()`` renders (and callers can read programmatically);
 * ``progress(name, done, total)`` — throttled percent logging
   (LogProgress analog);
+* ``count(name)`` — event counters (host fallbacks and other route
+  changes), recorded whether or not stage timing is enabled;
 * ``device_profile(path)`` — wraps ``jax.profiler.trace`` so any stage
-  can be captured as an XLA/TPU trace for xprof.
+  can be captured as an XLA device trace.
 
-Disabled by default: enable with ``set_enabled(True)`` or the
-LIBMEMS_TPU_TRACE=1 environment variable.
+Stage timing is disabled by default: enable with ``set_enabled(True)``
+or the LIBMEMS_TPU_TRACE=1 environment variable.
 """
 
 from __future__ import annotations
@@ -42,6 +44,7 @@ class StageRecord:
 _root = StageRecord("root")
 _stack: list[StageRecord] = [_root]
 _last_progress: dict[str, float] = {}
+_counters: dict[str, int] = {}
 
 
 def set_enabled(on: bool, stream=None):
@@ -56,6 +59,17 @@ def reset():
     _root = StageRecord("root")
     _stack = [_root]
     _last_progress.clear()
+    _counters.clear()
+
+
+def count(name: str, n: int = 1) -> None:
+    """Add n to the event counter `name` (always on: counted events are
+    rare route changes, not per-item work)."""
+    _counters[name] = _counters.get(name, 0) + n
+
+
+def counters() -> dict[str, int]:
+    return dict(_counters)
 
 
 @contextlib.contextmanager
@@ -95,7 +109,7 @@ def progress(name: str, done: int, total: int, min_interval: float = 1.0):
 
 @contextlib.contextmanager
 def device_profile(log_dir: str):
-    """Capture an XLA device trace for this block (view with xprof)."""
+    """Capture an XLA device trace for this block (jax.profiler)."""
     import jax
     with jax.profiler.trace(log_dir):
         yield

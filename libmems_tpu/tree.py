@@ -1,6 +1,6 @@
 """Phylogenetic guide trees: Newick I/O, neighbor joining, midpoint rooting.
 
-TPU-native rebuild of the reference's guide-tree stack:
+Python rebuild of the reference's guide-tree stack:
 
 * PhyloTree — generic n-ary tree with Newick read/write
   (libMems/PhyloTree.h:38-44, :109-307);

@@ -1,6 +1,6 @@
 """Self-golden generation for the BASELINE configs (scaled to CPU).
 
-VERDICT r2 item 5: the reference cannot be built here (see README.md),
+The reference cannot be built here (see README.md),
 so these goldens pin THIS pipeline's own byte output for scaled-down
 versions of BASELINE configs 1-4.  Any silent output drift between
 rounds fails tests/test_golden.py; intentional changes re-run

@@ -1,7 +1,7 @@
 """Reference-faithful oracle for libMems match finding (test infrastructure).
 
 A deliberately slow, structurally faithful Python re-statement of the
-reference algorithms, used as the parity target for the TPU pipeline:
+reference algorithms, used as the parity target for the device pipeline:
 
 * mer encoding / canonicalization: SortedMerList::GetSeedMer,
   RevCompMer, GetDnaSeedMer (libMems/SortedMerList.cpp:597-769) with the

@@ -1,5 +1,5 @@
 """Measured wall-clock bounds for the host-side sequential sweeps on
-adversarial (repeat-rich / overlap-dense) inputs (VERDICT r3 item 7).
+adversarial (repeat-rich / overlap-dense) inputs.
 
 The overlap-elimination interior (`lcb._sweep_overlap_cluster`) is the
 reference's sequential trim sweep (Aligner.cpp:62-178) run only inside

@@ -1,4 +1,4 @@
-"""Banded profile-DP parity (VERDICT r5 item 1).
+"""Banded profile-DP parity.
 
 The banded fast path must be INVISIBLE in results: certified windows
 produce byte-identical tracebacks/scores to the full-width DP, and

@@ -1,6 +1,6 @@
 """Sum-of-pairs scored GBE: incremental scorer vs brute-force recompute.
 
-Parity targets (VERDICT round 1, item 3):
+Parity targets:
 * scorer.score() equals a from-scratch recomputation of the objective;
 * every move_score equals the score change actually observed when the
   move is applied to a deep copy (no-copy probe == copy-probe);

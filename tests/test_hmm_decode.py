@@ -141,3 +141,37 @@ def test_fb_assoc_matches_sequential_calls():
     assert not ((calls_a != calls_s) & valid & sure).any()
     # padding columns never call homologous
     assert not (calls_a & ~valid).any()
+
+
+@pytest.mark.parametrize("n_blocks", [4, 64])
+def test_fb_assoc_multi_block_matches_sequential_calls(n_blocks):
+    """Several FB_ASSOC_BLOCK blocks per row: the block-total carries of
+    the forward and (reverse-order) backward products must reproduce
+    the sequential scan's calls in every block, not only the first, and
+    at 2^18 columns float32 must still resolve the posteriors (the
+    log-likelihood there is ~1e5 in magnitude)."""
+    import jax.numpy as jnp
+    import numpy as np
+    from libmems_tpu.ops import hmm
+
+    rng = np.random.default_rng(31)
+    params = hmm.hoxd_params()
+    ls, lt, lstop, le = (jnp.asarray(x)
+                         for x in hmm._log_matrices(params))
+    B, T = 2, n_blocks * hmm.FB_ASSOC_BLOCK
+    # homologous-looking columns with an unrelated stretch in block 2
+    obs = rng.choice(8, size=(B, T), p=[.6, .3, .02, .02, .02, .02, .01,
+                                         .01]).astype(np.int32)
+    obs[:, 9000:10500] = rng.integers(0, 8, size=(B, 1500))
+    lens = np.array([T, T - 3000], dtype=np.int32)
+    post = np.asarray(hmm._fb_posterior_ckpt(
+        jnp.asarray(obs), jnp.asarray(lens), ls, lt, lstop, le,
+        hmm.FB_CKPT_COLS))
+    packed = np.asarray(hmm._fb_calls_assoc(
+        jnp.asarray(obs), jnp.asarray(lens), ls, lt, lstop, le, 0.9))
+    calls_a = np.unpackbits(packed, axis=1,
+                            bitorder="little").astype(bool)[:, :T]
+    valid = np.arange(T)[None, :] < lens[:, None]
+    sure = np.abs(post - 0.9) > 1e-3
+    assert ((post >= 0.9) & valid).any() and ((post < 0.9) & valid).any()
+    assert not ((calls_a != (post >= 0.9)) & valid & sure).any()

@@ -1,4 +1,4 @@
-"""MUM discovery parity: TPU pipeline vs loop-faithful reference oracle.
+"""MUM discovery parity: device pipeline vs loop-faithful reference oracle.
 
 Covers MemHash default semantics (unique multi-MUMs) and
 PairwiseMatchFinder semantics on synthetic genomes with point mutations,

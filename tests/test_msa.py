@@ -159,7 +159,7 @@ def test_ascii_codes_roundtrip():
 def test_profile_dp_sharded_matches_single_device():
     """The window-batch DP sharded over the 8-device mesh (shard_map on
     the batch axis) must be bit-identical to single-device execution
-    (VERDICT r2 item 3d; AlignLCBInParallel parallelism on the mesh)."""
+    (AlignLCBInParallel parallelism on the mesh)."""
     import jax
     import numpy as np
     from libmems_tpu.ops.profile import align_profile_batch, dp_mesh

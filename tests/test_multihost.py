@@ -11,7 +11,7 @@ pytestmark = pytest.mark.slow
 def test_two_process_dryrun_parity():
     """Includes the END-TO-END cases: align() and progressive_align()
     to XMFA under jax.process_count()==2, byte-parity per process
-    (VERDICT r5 item 2 / BASELINE config 5)."""
+    (BASELINE config 5)."""
     from libmems_tpu.parallel.multihost_dryrun import run_multihost_dryrun
     run_multihost_dryrun(nproc=2, local_devices=4)
 

@@ -1,4 +1,4 @@
-"""Progressive public-surface additions (VERDICT r5 item 10):
+"""Progressive public-surface additions:
 align_profiles (alignPP analog, PA.cpp:3569), ProgressiveConfig.collinear
 (setCollinearGenomes, ProgressiveAligner.h:80) and scoring_scheme
 (LcbScoringScheme, ProgressiveAligner.h:89-94)."""

@@ -1,4 +1,4 @@
-"""Alignment-content quality gate (VERDICT r3 item 6).
+"""Alignment-content quality gate.
 
 Byte-goldens catch drift but regenerate on any intentional change; this
 gate tracks CONTENT quality with tolerant thresholds instead, so a
@@ -9,9 +9,9 @@ after goldens are regenerated.  Metrics: sum-of-pairs score
 IntervalList (scoring.alignment_quality_stats).
 
 Thresholds are floors/relations, not pins.  Scales are sized for the
-CPU test mesh (the profile DP is TPU-shaped; CPU XLA runs it at
-~0.35 M cells/s, so refine windows here stay small — bench_e2e.py
-tracks the same metrics at production scale on the real chip).
+CPU test mesh (refine windows here stay small); chip_smoke.py applies
+the same floors at production scale on the GPU and bench_e2e.py tracks
+the metrics there.
 """
 
 import os
@@ -41,7 +41,7 @@ def _family(rng, n, length, mutate=0.02):
 
 def test_pair_config_quality_floor():
     """Scaled golden config 1/3: 60 kb 1%-divergent pair with one
-    inversion.  Floors are measured-minus-margin (VERDICT r5 item 8):
+    inversion.  Floors are measured-minus-margin:
     r5 measured frac 1.000, SP 5.62e6 (93.7*n), core 59954 (0.999*n) —
     floors sit ~10% under so a real regression (halved SP, dropped
     coverage) fails while content-neutral changes pass."""
@@ -72,7 +72,7 @@ def test_progressive_quality_floor():
 
 
 def test_repeat_rich_quality_floor():
-    """Planted-repeat-family pair (VERDICT r5 item 6): IS-element-like
+    """Planted-repeat-family pair: IS-element-like
     multi-copy families stress the 1000-occurrence cutoff, overlap
     clustering and uniqueness-scaled anchor scores.  Floors from the r5
     measurement at this scale (frac ~0.99+, core ~0.97n) minus margin."""

@@ -1,5 +1,5 @@
 """README benchmark table must equal the rendering of the committed
-bench_results.json (one source of truth; VERDICT r4 weak 1 — the table
+bench_results.json (one source of truth — the table
 drifted from the JSON twice, so drift is now a test failure)."""
 
 import json

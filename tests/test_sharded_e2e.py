@@ -125,7 +125,7 @@ def test_progressive_align_mesh_e2e_parity():
 
 def test_mesh_supports_tolerant_search():
     """repeat_tolerance>0 routes through the sharded pipeline too
-    (VERDICT r5 item 7) and reproduces the single-device XMFA.  The
+    and reproduces the single-device XMFA.  The
     old ValueError rejection is gone."""
     from libmems_tpu.aligner import AlignerConfig, align
 

@@ -47,7 +47,7 @@ def test_sharded_two_devices(smls):
 
 
 def test_sharded_repeat_tolerance_parity():
-    """Tolerant repeat search on the mesh (VERDICT r5 item 7): genomes
+    """Tolerant repeat search on the mesh: genomes
     carrying a 2-copy repeat family must yield the same match set as
     the single-device tolerant path (MemHash::m_repeat_tolerance fanned
     through one interface, ParallelMemHash.cpp:42-121)."""
